@@ -1,4 +1,4 @@
-"""fccf_pcr_tpu — a TPU-native point-cloud registration framework.
+"""fccf_pcr_tpu — a point-cloud registration framework in JAX.
 
 A from-scratch JAX/XLA/Pallas rebuild of the capabilities of
 samsgood0310/FCCF-PCR (Chung, Hsieh, Hsu 2023): feature-consistent

@@ -22,7 +22,7 @@ parallel:
   - each emitted representative is (mean translation, axis-averaged
     rotation rebuilt via two Rodrigues steps) over its members.
 
-TPU-native derivation of the seed set (replacing the reference's O(H^2)
+Parallel derivation of the seed set (replacing the reference's O(H^2)
 *sequential* allocation loop): index i is a greedy seed iff
 
     seed_i = eligible_i  AND  NOT EXISTS j < i: seed_j AND adj(j, i)
@@ -30,8 +30,8 @@ TPU-native derivation of the seed set (replacing the reference's O(H^2)
 because "allocated before i's turn" means exactly "covered by an earlier
 seed's ball". Blocks of 256 indices are processed in order by a scan whose
 step computes the geometric ball predicates for its rows ON THE FLY —
-nothing (H, H)-shaped ever exists in HBM (an explicit adjacency matrix at
-H=8192, batch 8, 3 types measured multi-GB of traffic on v5e). Intra-block
+nothing (H, H)-shaped ever exists in device memory (an explicit adjacency
+matrix at H=8192, batch 8, 3 types would move gigabytes). Intra-block
 dependencies resolve with a tiny (256, 256) fixpoint. Cluster statistics
 are then masked matmuls over the compacted seed rows only.
 """
@@ -60,9 +60,9 @@ _SEED_BLOCK = 512
 # of (B, B) tiles that stops at the occupied-column prefix, so scan cost
 # tracks content^2 instead of content x capacity. Exact by construction
 # (columns past the occupied prefix are masked in both paths — tested
-# equal). Off pending a TPU A/B: the win is the unoccupied column
-# fraction, the cost is inner-loop sequencing of smaller matmuls.
-# (FCCF_SEED_COL_BLOCKED=1 flips it per process for that A/B.)
+# equal). Off by default: the win is the unoccupied column fraction, the
+# cost is inner-loop sequencing of smaller matmuls; it is to be measured
+# on the GPU (ROADMAP D2). FCCF_SEED_COL_BLOCKED=1 flips it per process.
 _SEED_COL_BLOCKED = env_bool("FCCF_SEED_COL_BLOCKED", False)
 
 
@@ -113,8 +113,7 @@ def _greedy_seeds_all_types(masks, t, px, py, params):
     # [t, px, py, 1] zeroed outside the lane — so a block's member sums
     # and sizes are (geo @ stats_cols) with the row's type mask applied
     # AFTER the contraction. Nothing (n_types, B, H)-shaped ever
-    # materializes (the former bool member tensor + f32 convert measured
-    # ~45 ms/step at H=16384, batch 8, on v5e).
+    # materializes (no bool member tensor and its f32 convert).
     stats10 = jnp.concatenate(
         [t, px, py, jnp.ones((H, 1), t.dtype)], axis=-1
     )  # (H, 10)
@@ -262,8 +261,7 @@ def _emit_representatives(seed_valid, size, sums, cluster_num, caps):
     )
 
     # Compact the raw cluster sums FIRST, then build the representative
-    # pose only for the <=C emitted slots — the Rodrigues/quaternion math
-    # on all W slots measured ~3 ms/step at W=2048 x 3 types x batch 8.
+    # pose only for the <=C emitted slots, not for all W.
     C = caps.max_reps
     _, overflow, r_valid, r_size, r_sums = compact(emit, C, s_size, s_sums)
     mean_t = r_sums[:, 0:3] / jnp.maximum(r_size[:, None], 1.0)

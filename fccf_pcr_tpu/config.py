@@ -1,10 +1,10 @@
-"""Parameter and capacity configuration for the FCCF-PCR TPU pipeline.
+"""Parameter and capacity configuration for the FCCF-PCR JAX pipeline.
 
 Mirrors the reference's file-scope global parameter set
 (``/root/reference/FCCF.cpp:120-176``) as a frozen, hashable dataclass so a
 whole parameter set can be closed over statically by ``jax.jit``.
 
-Capacities are the TPU-native addition: every pipeline stage operates on
+Capacities are this rebuild's addition: every pipeline stage operates on
 fixed-shape, masked tensors (max points N, max voxels V, max faces F, ...);
 these bounds are chosen per-dataset and are static under ``jit``.
 """
@@ -88,13 +88,11 @@ class FCCFParams:
     select_cluster_number: int = 200
     rough_threshold: float = 2.0
     leaf_size: float = 0.1
-    # --- TPU-native knobs (no reference counterpart) ---
+    # --- knobs with no reference counterpart ---
     # Gauss-Newton/LM iterations replacing Ceres DENSE_QR max 50 (:227).
     refine_iters: int = 50
     # Label-propagation sweeps cap for face growth (converges much earlier).
     label_prop_iters: int = 32
-    # Use the fused Pallas affinity+label-prop kernel on TPU backends.
-    use_pallas: bool = True
     # Type-gate in the final fusion (:1601).
     fuse_gate: float = 0.8
     # Rotation-consistency gate for fusion (degrees; 0 = off = the
@@ -115,7 +113,7 @@ class FCCFParams:
     # pre-/post-refinement pose by fine score") lived here rounds 3-4 and
     # was deleted round 5 after its accuracy A/B under the 0.005
     # curvature gate measured it worse on every metric (docs/PARITY.md
-    # divergence 8; tpu_eval_results.jsonl guard_eval).
+    # divergence 8).
 
     def replace(self, **kw) -> "FCCFParams":
         return dataclasses.replace(self, **kw)
@@ -125,7 +123,7 @@ class FCCFParams:
 class Capacities:
     """Static shape bounds for the masked tensor pipeline.
 
-    The reference uses dynamic ``std::vector`` everywhere; on TPU every
+    The reference uses dynamic ``std::vector`` everywhere; here every
     stage is a fixed-shape program. Overflow degrades gracefully: smallest /
     latest entries are dropped and a status flag is raised.
     """

@@ -5,7 +5,7 @@ whose included angle lies strictly inside (30, 150) degrees become bases;
 each base is typed 0/1/2 (smooth-smooth / rough-rough / mixed) from the
 per-face roughness theta against ``rough_threshold`` = 2.
 
-TPU form: the pair list is a *static* lexicographic enumeration of the
+Tensor form: the pair list is a *static* lexicographic enumeration of the
 F*(F-1)/2 upper-triangle pairs (matching the reference's nested-loop
 order), with a validity mask instead of dynamic push_back.
 """

@@ -205,7 +205,7 @@ def generate_hypotheses(
     slot_t = jnp.concatenate([T3.reshape(M, F * F, 3), t_fb[:, None, :]], axis=1)
 
     # Two-stage compaction: a direct compaction over the M*S (~4M) slot
-    # grid costs a 4M-update scatter (~19 ms/step on v5e). Instead extract
+    # grid costs a 4M-update scatter. Instead extract
     # each match's first `PER_MATCH` hits with top_k (hits per match are
     # sparse: measured max 9 on room scenes, 21 on pillar halls — sized
     # per preset by caps.per_match_hits; extras raise the overflow flag),
@@ -224,8 +224,7 @@ def generate_hypotheses(
     # flat (match * S + slot) index; the (H,)-sized output then gathers
     # translation/quat/type straight from the per-match tables. Nothing
     # (M * PER_MATCH)-wide materializes beyond the validity bits and one
-    # int32 index (the former (M*K, 3) hit-translation gather measured
-    # ~13 ms/step at M=4096 on v5e).
+    # int32 index (no (M*K, 3) hit-translation gather).
     flat = jnp.arange(M, dtype=jnp.int32)[:, None] * S + idxs  # (M, K)
     (h_count, h_overflow, h_valid, hflat) = compact(hit_valid, H, flat)
     hm = hflat // S

@@ -2,7 +2,7 @@
 
 Equivalent of the reference's PCLVisualizer debug views (``showPic`` /
 ``showPointPic``, FCCF.cpp:257-323, C5 — never called from the CLI path):
-instead of opening VTK windows (impossible on a headless TPU host), these
+instead of opening VTK windows (impossible on a headless accelerator host), these
 helpers export colored PLY files viewable in any point-cloud tool
 (CloudCompare, MeshLab): one color per face, centroid markers, and
 before/after registration overlays.

@@ -112,8 +112,8 @@ def auto_caps(clouds, params: FCCFParams, headroom: float = 1.4) -> Capacities:
     return Capacities(
         max_points=max_points,
         max_raw_points=_ceil_to(n_raw, 1024),
-        # V rounds to 512 (the Pallas label-prop block contract:
-        # ops/pallas/label_prop._block_sizes needs 128 | V and 512 | V)
+        # V rounds to 512, a multiple of the label-prop kernel's blocks,
+        # so the kernel's wrapper needs no padding
         max_voxels=max(512, _ceil_to(n_fvox * headroom, 512)),
         # base matching / hypothesis fan-out has no cheap host-side
         # predictor (measured families span 183..7570 hypotheses

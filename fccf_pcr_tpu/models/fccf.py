@@ -37,7 +37,7 @@ class FCCFModel:
 
 
 # Capacity presets are sized from measured content statistics of the
-# benchmark scene families (see docs/PERFORMANCE.md). Stage capacities
+# benchmark scene families (tools/measure_content.py). Stage capacities
 # (voxels/hypotheses/residual/fine) carry >= 1.4x headroom over observed
 # maxima; the point capacities are tighter (~1.07x — they set the hot
 # sort volume directly). EVERY bound is guarded at runtime: stage
@@ -51,14 +51,11 @@ _STANDARD_CAPS = Capacities(      # office at the 0.005 curvature default
     max_points=1 << 16,           # (8 bench seeds, measure_content.py):
     max_raw_points=1 << 17,       #   raw<=124k, down<=60.5k, vox<=1019,
     max_voxels=1536,              #   match<=939, hyp<=1236, res<=19.2k,
-    # match/hyp lanes run TIGHT over the bench-seed maxima (round-3
-    # on-chip A/B: +9.6% pairs/s, tightcaps/office,
-    # tpu_ab_results_r4a.jsonl, bit-identical accuracy). The 0.005
-    # curvature gate then SHRANK office match content to <=939, opening a
-    # further halving: match 2048 -> 1024 measured +16.8% pairs/s
-    # (137.98 vs 118.18, tight/office-match1024 vs same-session
-    # base/office, tpu_ab_results_r4b.jsonl) at identical accuracy.
-    # 1024 = 1.09x over the bench-seed maximum. Tight lanes are
+    # match/hyp lanes run TIGHT over the bench-seed maxima: the sort
+    # volume they set is what the stages cost, and accuracy is
+    # bit-identical. The 0.005 curvature gate shrank office match content
+    # to <=939, so match is 1024 = 1.09x over the bench-seed maximum.
+    # Whether the tight lanes pay on the GPU is ROADMAP S6/D6. They are
     # policy-legal only because overflow raises a status bit and sweep
     # drivers re-run flagged pairs at auto_escalation_caps
     # (evaluate.py --escalate-caps auto).
@@ -105,10 +102,10 @@ _STRUCTURED_CAPS = dataclasses.replace(  # measured at the 0.005 curvature
 _OUTDOOR_CAPS = dataclasses.replace(  # cross-season at the 0.005 gate
     _STANDARD_CAPS,                   #   (8 bench seeds): raw<=102k,
     max_raw_points=1 << 18,           #   down<=57k, vox<=1042, match<=929,
-    # tight lanes (round-3 A/B: +19.8% pairs/s, tightcaps/cross-season,
-    # identical accuracy); the tight gate nearly HALVED match/hyp content
-    # here (hyp 2238 -> 1106 max), so the 2048/2560 lanes now carry ~2x
-    # headroom; escalation covers any eval tail (see _STANDARD_CAPS note).
+    # tight lanes (identical accuracy); the tight gate nearly HALVED
+    # match/hyp content here (hyp 2238 -> 1106 max), so the 2048/2560
+    # lanes now carry ~2x headroom; escalation covers any eval tail (see
+    # _STANDARD_CAPS note).
     max_matches=2048,
     max_hypotheses=2560,
     max_residual=28672,               # res<=22.2k (1.29x under the cap)
@@ -117,12 +114,10 @@ _OUTDOOR_CAPS = dataclasses.replace(  # cross-season at the 0.005 gate
 
 _RESSO_CAPS = Capacities(   # facade family at the 0.005 gate (8 bench
     max_points=73728,       #   seeds, measure_content.py): raw<=73.0k,
-    max_raw_points=81920,   #   down<=68.9k, vox<=6639, match<=1132 (TPU
-    max_voxels=9216,        #   f32 face tie-flips can shift counts),
-    # match/hyp 2048 -> 1536 measured +4.8% pairs/s (67.02 vs 63.94,
-    # tight/resso-lanes1536 vs same-session base/resso,
-    # tpu_ab_results_r4b.jsonl) at identical accuracy; 1.36x/1.21x over
-    # the bench maxima, escalation covers the eval tail as ever.
+    max_raw_points=81920,   #   down<=68.9k, vox<=6639, match<=1132 (f32
+    max_voxels=9216,        #   face tie-flips can shift counts),
+    # match/hyp 1536: 1.36x/1.21x over the bench maxima at identical
+    # accuracy; escalation covers the eval tail as ever.
     max_matches=1536,       #   hyp<=1273,
     max_hypotheses=1536,    #   <=6 hits/match, res<=6.9k, fine<=1226,
     max_reps=256,           #   span<=118 cells
@@ -135,10 +130,9 @@ _RESSO_CAPS = Capacities(   # facade family at the 0.005 gate (8 bench
 _HERITAGE_CAPS = Capacities(  # courtyard family (measure_content, 8
     max_points=245760,        #   seeds, leaf 0.2 / face 2.0): raw<=283k,
     max_raw_points=294912,    #   down<=238k, vox<=8526, match<=960,
-    # 9216 = 1.08x over the observed 8526 voxel max (O(V^2) label-prop
-    # work scales with this cap): round-3 A/B +5.9% (tightcaps/heritage)
-    # at identical accuracy; overflow is flagged + escalated like every
-    # other bound. V must stay a multiple of 1024 for the Pallas j-chunk.
+    # 9216 = 1.08x over the observed 8526 voxel max (the plain path's
+    # O(V^2) label-prop work scales with this cap) at identical accuracy;
+    # overflow is flagged + escalated like every other bound.
     max_voxels=9216,          #   match<=1748, hyp<=2599, seeds<=1992,
     max_matches=2048,         #   res<=34.9k (36.5k 40-seed eval max at
     max_hypotheses=3072,      #   the old gate), fine<=15.2k, span<=283

@@ -1,6 +1,6 @@
 """Vectorized geometry primitives.
 
-TPU-native rewrites of the reference's scalar Eigen helpers:
+Vectorized rewrites of the reference's scalar Eigen helpers:
   - normal angle / normal & coplanarity predicates  (FCCF.cpp:369-407, C7)
   - Rodrigues rotations and the closed-form two-step rotation construction
     used in hypothesis generation and rotation averaging
@@ -241,9 +241,10 @@ def rotation_error_deg(R_est, R_gt):
     """Relative rotation error (degrees).
 
     tr(R_gt^T R_est) is computed as the elementwise dot sum(R_gt * R_est)
-    — NOT a matmul — so the metric is exact f32 even in eager mode on TPU,
-    where matmuls default to bf16 (a bf16 trace error of ~3e-3 fabricates
-    ~4 deg of rotation error near identity)."""
+    — NOT a matmul — so the metric is exact f32 even in eager mode on a
+    backend whose default matmul precision is reduced (TF32 or bf16: a
+    trace error of ~3e-3 fabricates ~4 deg of rotation error near
+    identity)."""
     tr = jnp.sum(R_gt * R_est, axis=(-2, -1))
     cos = jnp.clip((tr - 1.0) / 2.0, -1.0, 1.0)
     return jnp.degrees(jnp.arccos(cos))

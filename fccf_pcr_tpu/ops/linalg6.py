@@ -1,7 +1,7 @@
-"""Tiny fixed-size linear solves, unrolled for the VPU.
+"""Tiny fixed-size linear solves, unrolled into elementwise ops.
 
 XLA's generic batched LU (jnp.linalg.solve) lowers to loopy kernels that
-are slow for 6x6 systems on TPU; the LM refinement (refine/gauss_newton.py)
+are slow for batches of 6x6 systems; the LM refinement (refine/gauss_newton.py)
 solves one damped-normal-equations system per candidate per iteration, so
 an unrolled Cholesky (statically 6 steps of elementwise ops, fully
 vmappable) is the right shape for the hardware.

@@ -1,26 +1,27 @@
-"""Fused affinity + min-label-propagation Pallas TPU kernel.
+"""Fused affinity + min-label-propagation sweep: a Pallas kernel for the GPU
+(Triton route).
 
-Replaces the XLA path in features/faces.py (build a (V, V) boolean affinity,
-then sweep `labels <- min(labels, affinity-neighbor labels)`) with a single
-kernel that
+Replaces the plain path in features/faces.py (build the (V, V) boolean
+affinity from four (V, 3) x (3, V) products, then sweep
+``labels <- min(labels, affinity-neighbour labels)``) with a kernel that
 
   - computes the compare_normal / compare_plane predicates (FCCF.cpp:369-407)
-    on the fly from per-voxel stats resident in VMEM — the (V, V) affinity
-    never exists in HBM;
-  - performs Gauss-Seidel sweeps: the TPU grid executes sequentially, and
-    labels are updated in place, so later row blocks see earlier updates
-    within the same sweep (faster convergence than the XLA Jacobi sweeps);
-  - reports whether the final sweep changed anything, so the caller can run
-    a convergence loop on top of a fixed in-kernel sweep count.
+    in registers from per-voxel stats, so neither the (V, V) products nor
+    the affinity are ever written to device memory;
+  - stops at the runtime occupancy ``bound``: slots at or past it are
+    invalid by contract, so a sweep costs bound^2 predicate evaluations
+    instead of V^2 (pass 2 of face growth runs on a compacted prefix of a
+    few hundred representatives).
 
-Layouts: stats are passed both voxel-major (V, 8) and field-major (8, V) so
-the i-block loads columns and the j-chunks load rows without in-kernel
-transposes of large tiles.
+One ``pallas_call`` is one Jacobi sweep. Program ``p`` owns rows
+[p*BI, (p+1)*BI): it reads the old labels, scans the j-chunks below the
+bound in a loop, and writes its rows of the new labels. The convergence
+test and the pointer-jumping rounds run in XLA between calls, inside the
+same ``while_loop`` shape as the plain path, so both reach the same
+fixpoint: the minimum slot index of each connected component.
 
-Field order: [nhx, nhy, nhz, cx, cy, cz, rdotc, c2] where nh* is the
-normal scaled for the angle gate, c* the centroid, rdotc = raw_n . c and
-c2 = |c|^2. The plane gate uses the *raw* normal, passed via a second
-field block [rnx, rny, rnz, valid, 0, 0, 0, 0].
+Stats are field-major (fields, V) so that a program loads each field of a
+j-chunk as one contiguous row.
 """
 
 from __future__ import annotations
@@ -30,278 +31,153 @@ import functools
 import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plgpu
 
-from ...utils.tuning import env_int
-
-# A/B overrides for the sweep schedule (any schedule reaches the same
-# fixpoint — tests/test_pallas_label_prop.py pins schedule invariance;
-# see utils/tuning.py and the jump() comment below for the measurements).
-# An in-kernel path-halving variant (FCCF_JUMP_IN_KERNEL) was built and
-# REMOVED round 4: label[label] is an arbitrary-index gather over the
-# whole (V,) vector and Mosaic lowers neither 1D gathers ("Only 2D
-# gather is supported", tools/probe_gather.py on v5e) nor the two-level
-# row+lane composition the 2D take_along_axis form would need.
-_DEFAULT_SWEEPS = env_int("FCCF_SWEEPS_PER_CALL", 2)
-# JUMP default 1 (was 2): the round-3 on-chip A/B measured +4.0% pairs/s
-# on heritage (sched-s2j1, tpu_ab_results.jsonl) with identical accuracy,
-# and the convergence simulation (jump() comment below) says call counts
-# are identical for J in {1, 2, 4, 8} — J=1 keeps the chain-shortcut
-# safety margin at half the gather cost. J=0 costs one extra O(V^2) call
-# (sched-s4j0 measured -2.0%/-6.7%).
-_DEFAULT_JUMP = env_int("FCCF_JUMP_ROUNDS", 1)
+from .. import geometry
 
 _BIG = 2**30  # python int: jnp scalars become captured consts in kernels
 
-BI = 128   # default i-block (rows updated per grid step)
-BJ = 512   # default j-chunk (lanes scanned per inner iteration)
+# Rows per program, j-chunk width and warps per program. In two sweeps of
+# BI x BJ x warps on an H100 (PERF.md) this shape had the lowest heritage
+# (V=9216) stage time, 6.93 ms at 700 W and 6.98-7.07 ms at 400 W; the
+# other BI=8/16 shapes ran 7.1-10.9 ms, BI=32/64 8.2-61.5 ms (wide row
+# blocks spill registers). At office width the BI=8/16 shapes were within
+# run-to-run noise of each other.
+BI = 16
+BJ = 128
+NUM_WARPS = 4
+# Path-halving rounds between sweeps: 1, 2, 4 and 8 measured the same on
+# the H100, so the cheapest.
+JUMP_ROUNDS = 1
+
+# Field rows of the packed stats (see _pack_stats).
+_NHX, _NHY, _NHZ, _CX, _CY, _CZ, _RDC, _C2, _RNX, _RNY, _RNZ, _VALID = range(12)
 
 
-def _block_sizes(V):
-    """Block sizes for V (must divide it). Measured on v5e at heritage
-    scale (V=11264, batch 4): widening the j-chunk to 1024 amortizes the
-    per-chunk field loads (198 -> 192 ms full step); GROWING BI is a
-    measured dead end — (256, 512) ran 215 ms, worse than the (128, 512)
-    baseline's 198 (coarser Gauss-Seidel blocks + a VMEM stack that
-    scales with BI: ~16 live (BI, BJ) f32 temps, needing the raised
-    vmem_limit_bytes below even at BJ=512). Keep BI=128."""
-    bj = 1024 if V % 1024 == 0 else BJ
-    return BI, bj
+def _sweep_kernel(stats_ref, params_ref, bound_ref, labels_ref, out_ref, *,
+                  BI: int, BJ: int):
+    i0 = pl.program_id(0) * BI
+    rows = pl.ds(i0, BI)
+    cos_gate = params_ref[0]
+    l = params_ref[1]
+    k = params_ref[2]
+    bound = bound_ref[0]
 
+    def col(f):  # (BI, 1) field of the row block
+        return stats_ref[f, rows][:, None]
 
-def _sweep_kernel(
-    statsT_ref,  # (V, 16) voxel-major fields
-    stats_ref,   # (16, V) field-major fields
-    params_ref,  # (1, 4) SMEM: cos_gate, l, k, n_sweeps(unused)
-    bound_ref,   # (1, 1) SMEM int32: occupied-slot prefix length (<= V)
-    labels_in_ref,   # (1, V) int32 (aliased to labels_ref; unused directly)
-    labels_ref,  # (1, V) int32 output, updated in place across grid steps
-    changed_ref,  # (1, 1) int32 SMEM out
-    *,
-    V: int,
-    BI: int,
-    BJ: int,
-):
-    s = pl.program_id(0)
-    ib = pl.program_id(1)
-    n_s = pl.num_programs(0)
-    i0 = ib * BI
+    nhx_i, nhy_i, nhz_i = col(_NHX), col(_NHY), col(_NHZ)
+    cx_i, cy_i, cz_i = col(_CX), col(_CY), col(_CZ)
+    rdc_i, c2_i = col(_RDC), col(_C2)
+    rnx_i, rny_i, rnz_i = col(_RNX), col(_RNY), col(_RNZ)
 
-    cos_gate = params_ref[0, 0]
-    l = params_ref[0, 1]
-    k = params_ref[0, 2]
-    bound = bound_ref[0, 0]
+    def j_chunk(jc, cand):
+        cols = pl.ds(jc * BJ, BJ)
 
-    @pl.when((s == 0) & (ib == 0))
-    def _():
-        changed_ref[0, 0] = 0
-        # The output VMEM block is NOT initialized from the aliased input
-        # buffer on hardware (only final write-back is aliased) — seed it
-        # explicitly before the first sweep reads it.
-        labels_ref[...] = labels_in_ref[...]
+        def row(f):  # (1, BJ) field of the j-chunk
+            return stats_ref[f, cols][None, :]
 
-    # Slots at index >= bound are all invalid (callers pass the occupied
-    # prefix length): their labels stay at the seeded value and they can
-    # never join an affinity, so both the i-block update and the j-chunk
-    # scan stop at the bound. With prefix-compacted voxel slots this
-    # skips the (V - bound)^2 dead corner of every sweep at runtime.
-    @pl.when(i0 < bound)
-    def _active_block():
-        # i-block columns (BI, 1)
-        nhx_i = statsT_ref[pl.ds(i0, BI), 0:1]
-        nhy_i = statsT_ref[pl.ds(i0, BI), 1:2]
-        nhz_i = statsT_ref[pl.ds(i0, BI), 2:3]
-        cx_i = statsT_ref[pl.ds(i0, BI), 3:4]
-        cy_i = statsT_ref[pl.ds(i0, BI), 4:5]
-        cz_i = statsT_ref[pl.ds(i0, BI), 5:6]
-        rdc_i = statsT_ref[pl.ds(i0, BI), 6:7]
-        c2_i = statsT_ref[pl.ds(i0, BI), 7:8]
-        rnx_i = statsT_ref[pl.ds(i0, BI), 8:9]
-        rny_i = statsT_ref[pl.ds(i0, BI), 9:10]
-        rnz_i = statsT_ref[pl.ds(i0, BI), 10:11]
-        valid_i = statsT_ref[pl.ds(i0, BI), 11:12]
-
-        def j_chunk(jc, cand):
-            j0 = jc * BJ
-            nhx_j = stats_ref[0:1, pl.ds(j0, BJ)]
-            nhy_j = stats_ref[1:2, pl.ds(j0, BJ)]
-            nhz_j = stats_ref[2:3, pl.ds(j0, BJ)]
-            cx_j = stats_ref[3:4, pl.ds(j0, BJ)]
-            cy_j = stats_ref[4:5, pl.ds(j0, BJ)]
-            cz_j = stats_ref[5:6, pl.ds(j0, BJ)]
-            rdc_j = stats_ref[6:7, pl.ds(j0, BJ)]
-            c2_j = stats_ref[7:8, pl.ds(j0, BJ)]
-            rnx_j = stats_ref[8:9, pl.ds(j0, BJ)]
-            rny_j = stats_ref[9:10, pl.ds(j0, BJ)]
-            rnz_j = stats_ref[10:11, pl.ds(j0, BJ)]
-            valid_j = stats_ref[11:12, pl.ds(j0, BJ)]
-
-            # (BI, BJ) broadcasting: column (BI,1) x row (1,BJ)
-            cosm = nhx_i * nhx_j + nhy_i * nhy_j + nhz_i * nhz_j
-            cicj = cx_i * cx_j + cy_i * cy_j + cz_i * cz_j
-            d2 = jnp.maximum(c2_i + c2_j - 2.0 * cicj, 0.0)
-            dist = jnp.sqrt(d2)
-            # m1 = rn_i . (c_i - c_j); m2 = rn_j . (c_i - c_j)
-            m1 = rdc_i - (rnx_i * cx_j + rny_i * cy_j + rnz_i * cz_j)
-            m2 = (rnx_j * cx_i + rny_j * cy_i + rnz_j * cz_i) - rdc_j
-            # |m| * (k*dist + 1) < l * dist  <=>  |m|/dist < l/(k*dist+1)
-            lim = l * dist
-            kd = k * dist + 1.0
-            plane_ok = (jnp.abs(m1) * kd < lim) & (jnp.abs(m2) * kd < lim)
-            plane_ok = plane_ok | (dist <= 1e-9)
-            aff = (
-                (cosm >= cos_gate)
-                & plane_ok
-                & (valid_i > 0.5)
-                & (valid_j > 0.5)
-            )
-
-            lbl_j = labels_ref[0:1, pl.ds(j0, BJ)]
-            c = jnp.min(
-                jnp.where(aff, lbl_j, jnp.int32(_BIG)), axis=1, keepdims=True
-            )
-            return jnp.minimum(cand, c)
-
-        nb = (bound + BJ - 1) // BJ
-        cand = jax.lax.fori_loop(
-            0, nb, j_chunk, jnp.full((BI, 1), _BIG, jnp.int32)
+        cx_j, cy_j, cz_j = row(_CX), row(_CY), row(_CZ)
+        rnx_j, rny_j, rnz_j = row(_RNX), row(_RNY), row(_RNZ)
+        # The same expressions, in the same order, as
+        # features.faces._pairwise_affinity.
+        cosm = nhx_i * row(_NHX) + nhy_i * row(_NHY) + nhz_i * row(_NHZ)
+        cicj = cx_i * cx_j + cy_i * cy_j + cz_i * cz_j
+        dist = jnp.sqrt(jnp.maximum(c2_i + row(_C2) - 2.0 * cicj, 0.0))
+        m1 = rdc_i - (rnx_i * cx_j + rny_i * cy_j + rnz_i * cz_j)
+        m2 = (cx_i * rnx_j + cy_i * rny_j + cz_i * rnz_j) - row(_RDC)
+        t = l / (k * dist + 1.0)
+        plane_ok = (jnp.abs(m1) < t * dist) & (jnp.abs(m2) < t * dist)
+        aff = (cosm >= cos_gate) & (plane_ok | (dist <= 1e-9))
+        # Invalid slots carry label _BIG, so they need no validity term.
+        lbl_j = labels_ref[cols][None, :]
+        return jnp.minimum(
+            cand, jnp.min(jnp.where(aff, lbl_j, _BIG), axis=1)
         )
 
-        cur = labels_ref[0:1, pl.ds(i0, BI)]
-        new = jnp.minimum(cur, cand.reshape(1, BI))
-        any_change = jnp.any(new != cur)
-
-        @pl.when((s == n_s - 1) & any_change)
-        def _():
-            changed_ref[0, 0] = 1
-
-        labels_ref[0:1, pl.ds(i0, BI)] = new
+    # Rows at or past the bound are invalid: their programs only copy.
+    nb = jnp.where(i0 < bound, pl.cdiv(bound, BJ), 0)
+    cand = jax.lax.fori_loop(0, nb, j_chunk, jnp.full((BI,), _BIG, jnp.int32))
+    old = labels_ref[rows]
+    valid_i = stats_ref[_VALID, rows] > 0.5
+    out_ref[rows] = jnp.where(valid_i, jnp.minimum(old, cand), old)
 
 
-def _pack_stats(normal, centroid, valid, angle_thresh_deg):
-    """Build the two stat layouts consumed by the kernel."""
-    V = normal.shape[0]
-    nrm = jnp.linalg.norm(normal, axis=-1, keepdims=True)
-    nh = normal / jnp.maximum(nrm, 1e-12)
+def _pack_stats(normal, centroid, valid):
+    """(12, V) field-major stats in the row order of the _NHX.. constants."""
+    nh = geometry.normalize(normal)
     rdotc = jnp.sum(normal * centroid, axis=-1)
     c2 = jnp.sum(centroid * centroid, axis=-1)
-    fields = jnp.stack(
+    return jnp.stack(
         [
             nh[:, 0], nh[:, 1], nh[:, 2],
             centroid[:, 0], centroid[:, 1], centroid[:, 2],
             rdotc, c2,
             normal[:, 0], normal[:, 1], normal[:, 2],
             valid.astype(normal.dtype),
-            jnp.zeros((V,), normal.dtype),
-            jnp.zeros((V,), normal.dtype),
-            jnp.zeros((V,), normal.dtype),
-            jnp.zeros((V,), normal.dtype),
-        ],
-        axis=-1,
-    )  # (V, 16)
-    return fields, fields.T
+        ]
+    )
 
 
-def label_propagate_pallas(
-    normal, centroid, valid, angle_thresh_deg, l, k,
-    sweeps_per_call: int | None = None, max_calls: int = 32,
-    interpret: bool = False, bound=None, jump_rounds: int | None = None,
+def padded_size(V: int, block=(BI, BJ)) -> int:
+    """V rounded up to a multiple of both block sizes."""
+    m = max(block)
+    return -(-V // m) * m
+
+
+def label_propagate(
+    normal, centroid, valid, angle_thresh_deg, l, k, *, bound=None,
+    max_iters: int = 32, block=(BI, BJ), interpret: bool = False,
 ):
-    """Connected-component min labels of the affinity graph, via the fused
-    kernel. Semantically identical to features.faces._pairwise_affinity +
-    _label_propagate (Gauss-Seidel ordering reaches the same fixpoint).
+    """Connected-component min labels of the compare_normal/compare_plane
+    affinity graph; the same labels as features.faces._label_propagate
+    over features.faces._pairwise_affinity.
 
     ``bound`` (traced int32, optional): every valid slot index is < bound.
-    With prefix-compacted slots this prunes each sweep to the occupied
-    (bound, bound) corner at runtime; semantics are unchanged because
-    out-of-bound slots are invalid by contract (asserted in interpret/test
-    paths by the caller).
-
-    ``sweeps_per_call`` / ``jump_rounds`` default to the module schedule
-    (2/2, overridable per process via FCCF_SWEEPS_PER_CALL /
-    FCCF_JUMP_ROUNDS for on-chip A/Bs — any schedule is exact)."""
-    if sweeps_per_call is None:
-        sweeps_per_call = _DEFAULT_SWEEPS
-    if jump_rounds is None:
-        jump_rounds = _DEFAULT_JUMP
+    V need not be a block multiple: the stats are padded with invalid
+    slots up to ``padded_size(V, block)``."""
     V = normal.shape[0]
-    bi, bj = _block_sizes(V)
-    assert V % bi == 0 and V % bj == 0, f"V={V} must be a multiple of {bj}"
-    statsT, stats = _pack_stats(normal, centroid, valid, angle_thresh_deg)
+    bi, bj = block
+    Vp = padded_size(V, block)
+    pad = Vp - V
+    stats = jnp.pad(_pack_stats(normal, centroid, valid), ((0, 0), (0, pad)))
+    valid_p = jnp.pad(valid, (0, pad))
     cos_gate = jnp.cos(jnp.deg2rad(angle_thresh_deg)).astype(normal.dtype)
-    params = jnp.array([[cos_gate, l, k, 0.0]], normal.dtype)
-    if bound is None:
-        bound = jnp.int32(V)
-    bound_arr = jnp.asarray(bound, jnp.int32).reshape(1, 1)
-    labels0 = jnp.where(valid, jnp.arange(V, dtype=jnp.int32), _BIG).reshape(1, V)
+    params = jnp.stack(
+        [cos_gate, jnp.asarray(l, normal.dtype), jnp.asarray(k, normal.dtype)]
+    )
+    bound = jnp.asarray(V if bound is None else bound, jnp.int32).reshape(1)
 
-    call = pl.pallas_call(
-        functools.partial(_sweep_kernel, V=V, BI=bi, BJ=bj),
-        grid=(sweeps_per_call, V // bi),
-        in_specs=[
-            pl.BlockSpec((V, 16), lambda s, i: (0, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((16, V), lambda s, i: (0, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, 4), lambda s, i: (0, 0), memory_space=pltpu.SMEM),
-            pl.BlockSpec((1, 1), lambda s, i: (0, 0), memory_space=pltpu.SMEM),
-            pl.BlockSpec((1, V), lambda s, i: (0, 0), memory_space=pltpu.VMEM),
-        ],
-        out_specs=(
-            pl.BlockSpec((1, V), lambda s, i: (0, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, 1), lambda s, i: (0, 0), memory_space=pltpu.SMEM),
-        ),
-        out_shape=(
-            jax.ShapeDtypeStruct((1, V), jnp.int32),
-            jax.ShapeDtypeStruct((1, 1), jnp.int32),
-        ),
-        input_output_aliases={4: 0},
-        compiler_params=pltpu.CompilerParams(
-            # The affinity expression keeps ~16 (BI, BJ) f32 temps live
-            # on the VMEM stack; (128, 1024) tiles sit near Mosaic's
-            # default 16 MB scoped limit. Raise the cap (v5e has 128 MB
-            # physical VMEM) so tile-size tuning can't flip into a
-            # compile-time OOM.
-            vmem_limit_bytes=64 * 1024 * 1024,
-        ),
+    sweep = pl.pallas_call(
+        functools.partial(_sweep_kernel, BI=bi, BJ=bj),
+        out_shape=jax.ShapeDtypeStruct((Vp,), jnp.int32),
+        grid=(Vp // bi,),
+        compiler_params=plgpu.CompilerParams(num_warps=NUM_WARPS),
         interpret=interpret,
+        name="label_prop_sweep",
     )
 
     def jump(labels):
-        # Path-halving between kernel calls: shortcut chains with O(V)
-        # gathers so only a few O(V^2) sweep calls are needed (see
-        # features.faces.pointer_jump). Each round is a V-element random
-        # gather (~10 ns/element) at the STATIC V — pass 2's compacted
-        # call pays it at full V despite its tiny occupancy bound — so
-        # rounds are a measurable cost at building-scale V. A Gauss-Seidel
-        # convergence simulation on heritage-courtyard affinity graphs
-        # (6 instances, V=11264, 5.3-7.9k occupied) measured call counts
-        # IDENTICAL for J in {1, 2, 4, 8} (2-3 calls) and only +1 call at
-        # J=0 — the components are near-cliques (coplanar voxels are
-        # mutually affine at any distance), so long chains never form and
-        # 8 rounds were pure overhead (~0.9 ms/round/batch-4 at heritage).
-        # Default 2 keeps a margin; ANY schedule is exact (the convergence
-        # loop stops only when a full sweep is a no-op, which implies
-        # per-component-constant labels).
-        if jump_rounds == 0:
-            return labels
-        l = labels.reshape(V)
-
-        def body(_, x):
-            return jnp.minimum(x, x[jnp.minimum(x, V - 1)])
-
-        l = jax.lax.fori_loop(0, jump_rounds, body, l)
-        return jnp.where(valid, l, jnp.int32(_BIG)).reshape(1, V)
+        # Path-halving (see features.faces.pointer_jump): O(V) gathers that
+        # shortcut label chains, so few O(bound^2) sweeps are needed.
+        labels = jax.lax.fori_loop(
+            0, JUMP_ROUNDS,
+            lambda _, x: jnp.minimum(x, x[jnp.minimum(x, Vp - 1)]),
+            labels,
+        )
+        return jnp.where(valid_p, labels, _BIG)
 
     def body(state):
         labels, _, it = state
-        labels, changed = call(statsT, stats, params, bound_arr, labels)
-        return jump(labels), changed[0, 0] > 0, it + 1
+        new = jump(sweep(stats, params, bound, labels))
+        return new, jnp.any(new != labels), it + 1
 
     def cond(state):
         _, changed, it = state
-        return changed & (it < max_calls)
+        return changed & (it < max_iters)
 
-    labels, changed0 = call(statsT, stats, params, bound_arr, labels0)
+    init = jnp.where(valid_p, jnp.arange(Vp, dtype=jnp.int32), _BIG)
     labels, _, _ = jax.lax.while_loop(
-        cond, body, (jump(labels), changed0[0, 0] > 0, jnp.int32(1))
+        cond, body, (init, jnp.bool_(True), jnp.int32(0))
     )
-    return labels.reshape(V)
+    return labels[:V]

@@ -1,21 +1,16 @@
 """The hot co-sorts: one entry point for every key-sort that moves
-payloads ("payloads ride the sort network" — post-hoc permutation
-gathers measured ~60 ms per 131k rows on v5e, ops/voxelize.py).
+payloads ("payloads ride the sort network" instead of post-hoc
+permutation gathers, ops/voxelize.py).
 
-``jax.lax.sort`` is the implementation, by measurement. A Pallas
-bitonic co-sort kernel (whole network VMEM-resident, XOR partners as
-two ``pltpu.roll``s, payloads riding the swap mask, stable mode
-bit-identical to ``lax.sort(is_stable=True)``) was built in round 3 and
-REMOVED in round 4 after the on-chip A/B: at the primary call-site
-shape (office fused voxelize, 65536 rows, 1 int32 key + 3 f32 payloads)
-it measured 0.400 ms vs lax.sort's 0.203 ms on v5e — 2x SLOWER, with a
-~13-minute Mosaic compile at that size (tools/tpu_ab.py probe history,
-2026-08-19). XLA's variadic sort is simply the right tool on TPU: an
-O(n log n)-pass implementation the bitonic O(n log^2 n) network cannot
-beat once n reaches the shapes that matter, and the sort machinery that
-trace-attribution flags (~16-20 ms/batch) is sort *volume* (row count x
-call count), which capacity tightening attacks directly
-(models/fccf.py tightcaps notes) — not per-sort overhead.
+``jax.lax.sort`` is the implementation. A hand-written bitonic co-sort
+kernel was built for the accelerator the system was first written for
+and removed after it lost to XLA's variadic sort at the primary call-site
+shape (office fused voxelize, 65536 rows, 1 int32 key + 3 f32 payloads):
+an O(n log^2 n) network does not beat an O(n log n) sort at the shapes
+that matter, and what the sorts cost is their *volume* (row count x call
+count), which capacity tightening attacks directly (models/fccf.py) —
+not per-sort overhead. Whether a key+index sort followed by a gather
+beats the co-sort on the GPU is ROADMAP S5.
 
 ``site`` names the hot call site (downsample | stats | fused | table |
 join); it is retained in the signature so call sites stay

@@ -1,5 +1,5 @@
-"""Voxel hashing, grouping and per-voxel statistics — the TPU replacement for
-PCL's octree / VoxelGrid machinery.
+"""Voxel hashing, grouping and per-voxel statistics — the tensor-program
+replacement for PCL's octree / VoxelGrid machinery.
 
 The reference uses:
   - ``pcl::VoxelGrid`` downsampling (FCCF.cpp:1377-1387, :1668-1678)
@@ -7,7 +7,7 @@ The reference uses:
     lists for plane fitting (FCCF.cpp:475-534) and fine verification
     (FCCF.cpp:792-796)
 
-On TPU there is no tree: voxelization is a hash -> sort -> segment-reduce
+There is no tree: voxelization is a hash -> sort -> segment-reduce
 program over fixed-capacity arrays. Voxel cells are anchored at the absolute
 origin (``floor(p / res)``), not at the cloud bounding box like PCL's octree;
 this is a deliberate, documented divergence (deterministic, batch-friendly)
@@ -17,14 +17,14 @@ Cell index packing: cells are ordered (kz, ky, kx) with kx fastest, mirroring
 PCL VoxelGrid's leaf ordering, re-indexed relative to the cloud's min
 occupied cell and packed into ONE int32 sort key (see ``_cell_keys``).
 
-TPU performance rules baked into this module (hard-won; see the project
-memory/commit history):
-  - payloads ride the sorting network (``sort_by_key``) — post-hoc
-    permutation gathers of 131k-point clouds cost ~60 ms each on v5e;
+Layout rules this module follows (they were measured on the accelerator
+the system was first built for; ROADMAP S5 re-measures them on the GPU):
+  - payloads ride the sorting network (``sort_by_key``) instead of being
+    permuted by post-hoc random gathers of whole clouds;
   - no ``jnp.searchsorted`` in hot paths — it lowers to a while loop of
     binary-search rounds, each a full-width random gather;
-  - scatters are fine when indices are unique and values small (boundary
-    positions, compaction tables) — scatter-adds of wide payloads are not.
+  - scatters only where indices are unique and values small (boundary
+    positions, compaction tables) — no scatter-adds of wide payloads.
 """
 
 from __future__ import annotations
@@ -104,8 +104,7 @@ def sort_by_key(key, *payloads, site=None):
     """Stable co-sort of payloads by an int32 key (ops/sorting.py dispatch).
 
     Payloads ride the sorting network (structured data movement) instead of
-    being permuted by post-hoc random gathers — measured ~60 ms per
-    131k-point gather vs ~1 ms sorts on v5e.
+    being permuted by post-hoc random gathers.
     """
     return cosort((key,), payloads, stable=True, site=site)
 
@@ -124,8 +123,7 @@ def sorted_segment_reduce(values, seg, num_segments, return_start=False):
     scan, error O(eps log N)) at segment boundaries. Boundaries come from
     two unique-index scatters of the first/last position of each run —
     NOT jnp.searchsorted, which lowers to a while loop of binary-search
-    rounds with full-width gathers (measured 140 ms per 131k-query search
-    on v5e).
+    rounds with full-width gathers.
 
     The prefix-difference error scales with the MAGNITUDE of the running
     sum, so callers must feed O(cell-size) anchored values, never raw
@@ -147,8 +145,7 @@ def sorted_segment_reduce(values, seg, num_segments, return_start=False):
     # Segment ids are CONSECUTIVE (cumsum(first) - 1 at every call site), so
     # occupied slots are exactly [0, R) and each run ends where the next one
     # starts: ONE scatter builds the start table and the end table follows
-    # elementwise (a second N-update scatter measured ~4.9 ms per 1M updates
-    # on v5e — scatters serialize per update row).
+    # elementwise (saving a second N-update scatter).
     # Index S is out of bounds for the (S,) buffer -> dropped, keeping the
     # surviving scatter indices genuinely unique.
     start = (
@@ -183,16 +180,15 @@ def _kth_true_positions(flag, S, impl=None):
     by a static cost model (both shapes are static):
 
       - "bsearch": vectorized binary search on the inclusive cumsum —
-        S * ceil(log2 N) random gathered elements (~10 ns/element on
-        v5e). Wins for small tables over big clouds (office: V=1536,
-        N=131k).
-      - "scatter": ONE S-bounded scatter of the N row indices (~4.9 ms
-        per 1M update rows on v5e, independent of table size). Wins when
-        the table is large relative to the cloud (resso: V=9216 over
-        N=74k; heritage: V=11265 over N=246k).
+        S * ceil(log2 N) random gathered elements; for small tables over
+        big clouds (office: V=1536, N=131k).
+      - "scatter": ONE S-bounded scatter of the N row indices,
+        independent of table size; for tables large relative to the
+        cloud (resso: V=9216 over N=74k; heritage: V=9216 over N=246k).
 
-    The crossover uses the measured per-element constants (10 ns/gather
-    vs 5 ns/update-row): bsearch iff 2 * S * ceil(log2 N) < N.
+    The crossover weighs a gathered element at twice an update row:
+    bsearch iff 2 * S * ceil(log2 N) < N. The weights come from another
+    accelerator and are to be measured again on the GPU (ROADMAP S5).
     """
     n = flag.shape[0]
     if impl is None:
@@ -274,7 +270,7 @@ def _segment_mean_cov(pts_anchored, anchor, seg, V):
     ``anchor`` (the voxel cell corner, |p'| < cell size), so the one-pass
     identity cov = E[p'p'^T] - mu' mu'^T is computed on O(1)-magnitude
     values — no catastrophic cancellation — and needs no second pass or
-    (V,3)->(N,3) mean gather (measured ~6 ms per 131k cloud on v5e).
+    (V,3)->(N,3) mean gather.
     Anchor consistency within a segment is exact: the caller derives it
     from the same integer cell that defines the segment key. Returns
     (mean_absolute, cov, cnt); mean reconstructs as mu' + anchor, with
@@ -378,7 +374,7 @@ def compact(valid, capacity, *payloads):
     The k-th output slot gathers from a source-index table built with ONE
     unique-index int32 scatter (dest[k] = position of the k-th valid
     entry); payloads are then output-sized gathers. No jnp.searchsorted
-    (slow gather-round while loop on TPU) and no payload-wide scatters.
+    (a while loop of gather rounds) and no payload-wide scatters.
     """
     lead = valid.ndim
     valid = valid.reshape(-1)
@@ -415,8 +411,7 @@ def downsample_and_voxelize(points, mask, leaf, face_res, num_voxels,
     leaf grid nests exactly inside the feature grid by construction
     (face_cell = leaf_cell // ratio), so a single two-key sort
     (face_key, leaf_within_face) yields both groupings: leaf runs are
-    contiguous inside face runs. This halves the pipeline's sort volume
-    (~90 ms of sort machinery per batch-8 on v5e before fusion).
+    contiguous inside face runs. This halves the pipeline's sort volume.
 
     Returns (down_pts (N,3), down_mask (N,), stats: VoxelStats,
     point_voxel (N,), voxel_start (V,)) where down_pts are the leaf
@@ -445,9 +440,9 @@ def downsample_and_voxelize(points, mask, leaf, face_res, num_voxels,
     # key) and exactly reconstructible from the sorted key, enabling the
     # one-pass covariance in _segment_mean_cov with no mean gather.
     #
-    # (16-bit fixed-point payload packing was tried here and measured
-    # zero gain — the sort's cost is row-count-bound, not payload-width-
-    # bound on v5e — so payloads stay full f32.)
+    # (16-bit fixed-point payload packing was tried here and measured no
+    # gain — the sort's cost was row-count-bound, not payload-width-bound
+    # — so payloads stay full f32.)
     anchor_in = jnp.where(
         mask[:, None], fcell.astype(points.dtype) * face_res, 0.0
     )
@@ -513,8 +508,8 @@ def downsample_and_voxelize(points, mask, leaf, face_res, num_voxels,
     # ---- leaf reduce, SPARSE layout: each leaf run's stats materialize at
     # the run's LAST row (the downsampled cloud is mask-addressed, not
     # prefix-packed). This replaces the former slot-table reduce whose
-    # start-table scatter (N update rows, ~4.9 ms/1M on v5e) and two
-    # (N, 7)-wide boundary gathers dominated the voxelize stage; the sparse
+    # start-table scatter (N update rows) and two (N, 7)-wide boundary
+    # gathers dominated the voxelize stage; the sparse
     # form needs ONE (N, 4) gather and a cummax. Invalid (sentinel-key)
     # rows sort to the tail, so valid leaf runs tile a prefix contiguously
     # and run order — hence downstream content order — is unchanged.

@@ -2,20 +2,21 @@
 
 The reference is a sequential single-core program (SURVEY.md §2,
 "Parallelism & distributed communication": none exists to port). The
-TPU-native scaling axes for this workload are:
+scaling axes for this workload are:
 
   - *intra-pair*: every stage is already a batched tensor program on one
-    chip (MXU/VPU parallelism — features/, hypotheses/, verify/);
+    device (features/, hypotheses/, verify/);
   - *across pairs*: `vmap` + sharding of the pair axis over a
     `jax.sharding.Mesh` ('data',). XLA partitions the whole pipeline
     SPMD; per-pair work is independent so no collectives are required in
     steady state — exactly the "batch parallelism over scan pairs" design
-    from SURVEY.md §2. Collectives (psum over ICI) appear only in the
-    optional metric reductions below.
+    from SURVEY.md §2. Collectives (a psum, over NVLink on one GPU host)
+    appear only in the optional metric reductions below.
 
 This module provides the mesh plumbing plus a sharded sweep driver for
 whole-dataset registration (BASELINE.md coverage configs, e.g. the
-full-ETH consecutive-pair sweep on a v5e-8 slice).
+full-ETH consecutive-pair sweep over the GPUs of one host). The mesh is
+one flat axis: every card reaches every other at the same rate.
 """
 
 from __future__ import annotations
@@ -61,7 +62,7 @@ def make_sharded_register_fn(
 
 def sharded_mean_errors(T_est, T_gt, mesh, axis_name: str = "data"):
     """Mean RRE/RTE over a sharded batch — an example of an explicit
-    cross-chip reduction (psum over ICI) for sweep summaries."""
+    cross-device reduction (psum) for sweep summaries."""
     from ..pipeline.metrics import registration_errors
 
     def local(te, tg):

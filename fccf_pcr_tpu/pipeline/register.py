@@ -46,7 +46,7 @@ from ..ops.voxelize import (
 from ..verify.fine import build_source_table, fine_verify
 from ..verify.quick import match_faces, refine_transform
 
-# Status bit flags (TPU-native replacement for the reference's silent
+# Status bit flags (the replacement for the reference's silent
 # degradation; see SURVEY.md section 5, failure detection row).
 STATUS_OK = 0
 STATUS_VOXEL_OVERFLOW = 1
@@ -89,11 +89,11 @@ def register_pair(
     FCCF.cpp:1668-1678 + :1377-1387 — this function performs the second,
     internal downsample).
 
-    All matmuls run at float32 MXU precision: the pipeline's dots are
-    K=3 geometry contractions and boolean-mask reductions (bandwidth-bound,
-    so full precision is ~free), while the default bf16 MXU mode injects
-    ~4e-3 relative noise — enough to flip the cos-threshold predicates
-    (cos 5 deg = 0.9962) and visibly degrade RRE on real TPUs.
+    All matmuls run at full float32 precision (no TF32): the pipeline's
+    dots are K=3 geometry contractions and boolean-mask reductions
+    (bandwidth-bound, so full precision is ~free), while a reduced
+    precision mode injects ~1e-3 relative noise — enough to flip the
+    cos-threshold predicates (cos 5 deg = 0.9962) and degrade RRE.
     """
     with jax.default_matmul_precision("highest"):
         return _register_pair_impl(
@@ -190,8 +190,7 @@ def _register_pair_impl(
         # curvature gate it degraded every accuracy metric on both
         # measured families (structured RTE p95 0.077->0.153 m, RRE p95
         # 0.112->0.156 deg; heritage RTE p95 0.121->0.166 m; 40-seed
-        # on-chip A/B, tpu_eval_results.jsonl guard_eval) on top of a
-        # -1.6/-3.7% throughput price — docs/PARITY.md divergence 8.
+        # A/B) — docs/PARITY.md divergence 8.
         fscore_flat, falias_flat = fv(top_T.reshape(3 * K, 4, 4))
         fscore = jnp.where(top_valid, fscore_flat.reshape(3, K), 0.0)
         fine_aliased = jnp.any(falias_flat.reshape(3, K) & top_valid)

@@ -5,13 +5,13 @@ reference's *exact* sequential, order-dependent semantics — greedy region
 growth with running averages (FCCF.cpp:536-648), greedy overlapping
 clustering (:1040-1231), adaptive-floor emission, all quirks included.
 
-Purpose (SURVEY.md §7 hard part #1): the TPU pipeline intentionally replaces
+Purpose (SURVEY.md §7 hard part #1): the JAX pipeline intentionally replaces
 order-dependent greedy growth with order-independent label propagation;
 when results diverge on a scene, this twin is the debugging oracle that
 shows what the reference *would* have computed. It is also the golden for
 output-level parity tests. It is NOT a performance path.
 
-Divergences from the C++ (documented, shared with the TPU pipeline):
+Divergences from the C++ (documented, shared with the JAX pipeline):
   - by default, voxel cells are anchored at the absolute origin, not the
     PCL octree bounding box.  ``anchor="bbox"`` switches the two octree
     stages (face_extrate FCCF.cpp:475-479, fine_verify :792-796) to
@@ -20,7 +20,7 @@ Divergences from the C++ (documented, shared with the TPU pipeline):
     be measured (docs/PARITY.md).  ``voxel_grid_downsample`` stays
     origin-anchored in both modes because pcl::VoxelGrid itself bins at
     ``floor(p / leaf)`` — only the octrees are bbox-anchored in PCL;
-  - Ceres is replaced by the same LM solve the TPU path uses (identical
+  - Ceres is replaced by the same LM solve the JAX path uses (identical
     cost function, see refine/gauss_newton.py docstring).
 """
 
@@ -126,7 +126,7 @@ def face_extrate(cloud, params: FCCFParams, anchor="origin"):
 
     anchor="bbox" reproduces the PCL octree's bounding-box anchoring
     (octree root box starts at the cloud's min corner, FCCF.cpp:475-479)
-    instead of the absolute-origin grid shared with the TPU pipeline.
+    instead of the absolute-origin grid shared with the JAX pipeline.
     """
     centroid_global = cloud.mean(axis=0)
     shift = cloud.min(axis=0) if anchor == "bbox" else 0.0

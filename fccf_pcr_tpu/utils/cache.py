@@ -1,14 +1,21 @@
-"""Host-keyed persistent-compilation-cache paths.
+"""Where JAX's persistent compilation cache lives.
 
-XLA:CPU's persistent cache is keyed by program only, NOT by the host's
-CPU feature set. An executable AOT-compiled in one container can load in
-another with different vector features (logged as "Target machine
-feature ... is not supported on the host machine"), where it both risks
-SIGILL and — observed in practice — computes f32 reductions in a
-different order than a fresh compile would, shifting scores by ~4e-3
-relative and tripping golden regression bands. Keying the cache
-directory by a host fingerprint makes stale cross-container entries
-unreachable instead of subtly wrong.
+Every entry point (chip_smoke.py, bench.py, the CLI, tools/evaluate.py,
+tools/warm_cache.py, the test suite) calls :func:`setup_compile_cache`:
+
+  - if ``JAX_COMPILATION_CACHE_DIR`` is set, JAX reads it itself and this
+    module sets nothing;
+  - otherwise the cache is ``<checkout>/.jax_cache/`` (listed in
+    .gitignore). The path is fixed because it is part of the cache key: a
+    directory that moves never hits.
+
+On the CPU backend the cache goes one level deeper, into a subdirectory
+named by a host fingerprint. XLA:CPU's cache is keyed by program only, not
+by the host's CPU: an executable compiled ahead of time on one host can
+load on another with other vector features, where it risks SIGILL and
+computes f32 reductions in another order than a fresh compile would
+(observed: scores shifted ~4e-3 relative, tripping the golden bands).
+Keying by host makes such entries unreachable instead of subtly wrong.
 """
 
 from __future__ import annotations
@@ -16,19 +23,20 @@ from __future__ import annotations
 import hashlib
 import os
 import platform
-import re
+from pathlib import Path
+
+CHECKOUT = Path(__file__).resolve().parents[2]
+DEFAULT_DIR = CHECKOUT / ".jax_cache"
 
 
-def host_keyed_cache_dir(tag: str) -> str:
-    """A /tmp cache path namespaced by (machine, CPU identity, python,
+def host_fingerprint() -> str:
+    """Hash of (machine, CPU model/stepping/microcode/flags, python,
     jax/jaxlib versions).
 
-    The fingerprint includes the CPU *model/stepping/microcode*, not just
-    the feature flags: LLVM derives tuning features (e.g.
-    ``prefer-no-gather``, set for Downfall-mitigated Intel parts) from the
-    model, so two hosts with identical cpuinfo ``flags`` can still compile
-    incompatible AOT executables — observed as cross-host "machine type
-    doesn't match" loads through a /tmp shared across container hosts."""
+    The CPU *model* counts, not just its feature flags: LLVM derives tuning
+    features (e.g. ``prefer-no-gather`` on Downfall-mitigated Intel parts)
+    from the model, so two hosts with identical ``flags`` can still compile
+    incompatible executables."""
     ident = []
     try:
         with open("/proc/cpuinfo") as f:
@@ -41,26 +49,35 @@ def host_keyed_cache_dir(tag: str) -> str:
                     break
     except OSError:
         pass
-    try:
-        import jax
-        import jaxlib
+    import jax
+    import jaxlib
 
-        versions = f"{jax.__version__}|{jaxlib.__version__}"
-    except Exception:
-        versions = "unknown"
-    key = "|".join(
-        [platform.machine(), platform.python_version(), versions, *ident]
-    )
-    h = hashlib.sha1(key.encode()).hexdigest()[:10]
-    # user-scoped and pre-created 0700: /tmp is world-writable and the
-    # hash is computable from public host facts, so an unscoped path
-    # could be squatted (PermissionError) or pre-seeded with stale
-    # entries — the exact subtle-wrong-scores failure this module
-    # exists to prevent. The tag is sanitized against path separators.
-    tag = re.sub(r"[^A-Za-z0-9_.-]", "_", tag)
-    uid = os.getuid() if hasattr(os, "getuid") else 0
-    path = f"/tmp/jaxcache-fccf-{uid}-{tag}-{h}"
-    os.makedirs(path, mode=0o700, exist_ok=True)
-    if hasattr(os, "getuid") and os.stat(path).st_uid != os.getuid():
-        raise RuntimeError(f"compilation cache dir {path} owned by another user")
-    return path
+    key = "|".join([
+        platform.machine(), platform.python_version(),
+        jax.__version__, jaxlib.__version__, *ident,
+    ])
+    return hashlib.sha1(key.encode()).hexdigest()[:10]
+
+
+def compile_cache_dir(backend: str, environ=os.environ) -> Path | None:
+    """The directory this module would set for ``backend``, or None when
+    ``JAX_COMPILATION_CACHE_DIR`` already places the cache."""
+    if environ.get("JAX_COMPILATION_CACHE_DIR"):
+        return None
+    if backend == "cpu":
+        return DEFAULT_DIR / f"cpu-{host_fingerprint()}"
+    return DEFAULT_DIR
+
+
+def setup_compile_cache() -> str:
+    """Place the persistent compilation cache (see the module docstring)
+    for the default backend and return the directory in use. Call it once
+    the platform is chosen."""
+    import jax
+
+    path = compile_cache_dir(jax.default_backend())
+    if path is None:
+        return os.environ["JAX_COMPILATION_CACHE_DIR"]
+    path.mkdir(parents=True, exist_ok=True)
+    jax.config.update("jax_compilation_cache_dir", str(path))
+    return str(path)

@@ -1,7 +1,7 @@
 """Profiling / tracing utilities.
 
 The reference only measures (and then discards) one wall-clock interval
-(FCCF.cpp:1681-1685). TPU-native observability (SURVEY.md §5):
+(FCCF.cpp:1681-1685). Observability (SURVEY.md §5):
 
   - ``stage_timer``: per-stage wall timing with device synchronization
     (block_until_ready), for quick breakdowns without a profiler;

@@ -4,27 +4,21 @@ Several hot stages have two (or more) semantically identical
 implementations whose relative cost depends on the preset's static shapes
 — e.g. the boundary-table builder (ops/voxelize._kth_true_positions:
 binary search vs rank scatter) or the face-stats segment reduction
-(features/faces._label_segment_sum: one-hot MXU contraction vs
+(features/faces._label_segment_sum: one-hot matrix product vs
 scatter-add). Defaults come from measured cost models; equivalence of the
 alternatives is pinned by CPU tests either way.
 
-These env knobs exist so an on-chip A/B session (tools/tpu_ab.py) can flip
-ONE implementation per process without source edits — the same role
-XLA_FLAGS plays for XLA's own choices. They are read once at import and
-participate in jit cache keys only through the Python-level branch they
-select (one process = one setting; never flip mid-process).
+These env knobs let an on-chip A/B flip ONE implementation per process
+without source edits — the same role XLA_FLAGS plays for XLA's own
+choices. They are read once at import and participate in jit cache keys
+only through the Python-level branch they select (one process = one
+setting; never flip mid-process). Each is to be measured on the GPU and
+then deleted (ROADMAP D2).
 
 Knobs (unset = built-in default):
   FCCF_KTH_IMPL            auto | bsearch | scatter
   FCCF_SCATTER_STATS_MIN_V integer V threshold for the scatter face stats
   FCCF_SEED_COL_BLOCKED    0 | 1   column-blocked cluster seed scan
-  FCCF_SWEEPS_PER_CALL     integer Pallas label-prop sweeps per kernel call
-  FCCF_JUMP_ROUNDS         integer path-halving rounds between calls
-
-(Two round-3 knobs are gone: FCCF_SORT_IMPL — the Pallas bitonic
-co-sort lost its on-chip A/B 2x to lax.sort and was removed, see
-ops/sorting.py — and FCCF_JUMP_IN_KERNEL — Mosaic lowers no 1D gather,
-see ops/pallas/label_prop.py.)
 """
 
 from __future__ import annotations

@@ -5,7 +5,7 @@ cloud (label 0) with the transformed target residual cloud (label 1), voxel
 at 0.5 m, and for every voxel holding both labels add
 (s + t) * min(s,t)/max(s,t); score = sum / total points.
 
-TPU redesign (no octree, no per-candidate tree build):
+Tensor redesign (no octree, no per-candidate tree build):
   - residual points are compacted once per pair into fixed-capacity arrays;
   - voxel cells are absolute-anchored ``floor(p / res)`` packed into one
     int32 key (10 bits per axis with wraparound — exact for scenes under
@@ -15,7 +15,7 @@ TPU redesign (no octree, no per-candidate tree build):
     key, count) table is built once; each candidate stable-sorts
     [source unique keys ++ its transformed target keys] and propagates run
     boundaries (no ``jnp.searchsorted`` anywhere — it lowers to a while
-    loop of full-width binary-search gathers on TPU; see ``fine_verify``).
+    loop of full-width binary-search gathers; see ``fine_verify``).
 
 The denominator ``allinvec`` (:829) sums every occupied voxel's points,
 i.e. exactly the total number of fused points.
@@ -74,8 +74,7 @@ def _unique_counts(keys, cap):
     distinct keys exceeds ``cap`` (excess voxels are dropped).
 
     Run boundaries come from unique-index scatters of first/last run
-    positions (jnp.searchsorted lowers to a slow gather-round while loop
-    on TPU)."""
+    positions (jnp.searchsorted lowers to a gather-round while loop)."""
     n = keys.shape[0]
     with jax.named_scope("table_sort"):
         (s,) = cosort((keys,), site="table")
@@ -86,7 +85,7 @@ def _unique_counts(keys, cap):
     idx = jnp.arange(n, dtype=jnp.int32)
     # Run ids are dense-consecutive, so each run ends where the next one
     # starts: ONE scatter builds the start table, end follows elementwise
-    # (scatters serialize per update row on TPU — every one saved counts).
+    # (one N-update scatter instead of two).
     # Index cap is out of bounds for the (cap,) buffer -> dropped, keeping
     # the surviving scatter indices genuinely unique.
     start = (
@@ -160,8 +159,8 @@ def fine_verify(T, table: SourceTable, tar_pts, tar_mask, params, caps):
     label packed into the key's low bit (source=0 leads its cell run, so
     no stable sort and no label payload operand), followed by cummin run
     propagation. No jnp.searchsorted (which lowers to a while loop of
-    binary-search rounds with full-width gathers: 377 ms/step at these
-    sizes on v5e) and no per-candidate octree/sort of PCL's kind.
+    binary-search rounds with full-width gathers) and no per-candidate
+    octree/sort of PCL's kind.
     """
     R = T[:3, :3]
     t = T[:3, 3]
@@ -188,8 +187,8 @@ def fine_verify(T, table: SourceTable, tar_pts, tar_mask, params, caps):
     keys = jnp.concatenate([ks2, kt2])
     vals = jnp.concatenate([table.counts, jnp.ones((M,), jnp.float32)])
 
-    # co-sort: the count payload rides the sorting network (post-hoc
-    # permutation gathers of these arrays measured ~180 ms/step on v5e).
+    # co-sort: the count payload rides the sorting network instead of a
+    # post-hoc permutation gather.
     with jax.named_scope("join_sort"):
         k_s, val_s = cosort((keys,), (vals,), site="join")
     src_s = (k_s & 1) == 0

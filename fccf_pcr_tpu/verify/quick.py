@@ -7,7 +7,7 @@ min/max size ratio, refine the transform when >= 4 pairs matched
 (composing T <- DeltaT @ T), and return the sum of pair importances
 (2*min / (sum sizes)).
 
-TPU form: one (F1 x F2) predicate tensor + masked argmax per source face;
+Tensor form: one (F1 x F2) predicate tensor + masked argmax per source face;
 vmapped by the caller over all cluster representatives of all types.
 """
 

@@ -1,6 +1,6 @@
 """Equivalence of the two _face_stats segment-reduce implementations.
 
-The one-hot MXU contraction and the scatter-add form must agree (up to f32
+The one-hot matrix product and the scatter-add form must agree (up to f32
 summation order) for any label/valid pattern, including dropped labels,
 empty slots, and all-invalid inputs — the pipeline switches between them
 by preset V (features/faces.py:_SCATTER_STATS_MIN_V), so a divergence

@@ -1,7 +1,7 @@
 """Multi-chip sharding at PRODUCTION capacities (VERDICT r3 item 7).
 
 The dryrun (__graft_entry__.dryrun_multichip) and the sharding tests in
-test_sweep.py run tiny capacities; these tests validate the v5e-8 story
+test_sweep.py run tiny capacities; these tests validate the multi-device story
 at the real eth-office preset shapes on the 8-virtual-device CPU mesh
 (conftest.py forces xla_force_host_platform_device_count=8):
 

@@ -2,7 +2,7 @@
 assert (a) the matching STATUS_* bit fires and (b) the output stays finite.
 
 The reference's std::vector stages are unbounded (FCCF.cpp:1414-1427
-fan-out); the TPU rebuild replaces them with fixed-capacity masked tensors
+fan-out); the JAX rebuild replaces them with fixed-capacity masked tensors
 whose contract (config.py Capacities docstring) is "overflow degrades
 gracefully and raises a status flag". These tests make that contract
 load-bearing rather than compile-time-only.

@@ -3,7 +3,7 @@
 The reference aborts on unreadable input and otherwise assumes well-formed
 scans (FCCF.cpp:1655-1665); every degenerate case below reaches its
 pipeline as undefined behavior (empty octrees, zero-size faces,
-division by zero in computer_transform). The TPU rebuild's contract is
+division by zero in computer_transform). The JAX rebuild's contract is
 graceful degradation: ANY input yields a finite 4x4 transform plus honest
 status bits, never a crash or NaN.
 

@@ -1,8 +1,7 @@
 """Env-knob parsing (utils/tuning.py). The knobs select between
 implementations whose equivalence is pinned by their own tests
-(test_voxelize / test_face_stats / test_cluster / test_pallas_label_prop);
-here we only pin the parsing contract the A/B runner (tools/tpu_ab.py)
-relies on."""
+(test_voxelize / test_face_stats / test_cluster); here we only pin the
+parsing contract an A/B run relies on."""
 
 import pytest
 

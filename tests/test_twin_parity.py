@@ -1,7 +1,7 @@
-"""Output-level parity: TPU pipeline vs the faithful NumPy twin.
+"""Output-level parity: JAX pipeline vs the faithful NumPy twin.
 
 The twin (twin/twin.py) reproduces the reference's sequential greedy
-semantics exactly; the TPU pipeline uses order-independent label
+semantics exactly; the JAX pipeline uses order-independent label
 propagation. SURVEY.md §7 defines parity at the final-transform level
 (RTE/RRE tolerance), not the face-set level — this test enforces it.
 """

@@ -4,7 +4,7 @@ tests/golden/twin_production.json caches the NumPy twin's final
 transforms on the BENCH scene pairs (12k+ points/plane — the density
 where face merges actually contend; generated by
 tools/twin_production.py --generate, ~30 s+/pair offline). This test
-runs the TPU pipeline on a subset of those pairs and enforces
+runs the JAX pipeline on a subset of those pairs and enforces
 transform-level agreement with the reference's sequential greedy
 semantics (FCCF.cpp:536-648, :1040-1231) — the order-dependence risk of
 SURVEY.md §7 hard part #1, previously only covered by 800-point

@@ -3,7 +3,7 @@
 Extends the single-scene twin parity test to a sweep over 10 seeds for each
 of three scene families proxying the BASELINE.md coverage configs
 (office-like / apartment-density / cross-season), asserting transform-level
-agreement between the sequential reference-faithful NumPy twin and the TPU
+agreement between the sequential reference-faithful NumPy twin and the JAX
 pipeline, and measuring face-membership divergence with
 twin.diff.face_membership_diff (greedy growth vs label propagation —
 SURVEY.md hard part 1). Aggregate numbers are recorded in docs/PARITY.md.

@@ -7,7 +7,10 @@ markdown table (stdout) suitable for docs/EVALUATION.md.
 
 Usage:
     python tools/evaluate.py [--seeds N] [--configs office,apartment,...]
-    python tools/evaluate.py --device cpu   # force CPU (slow, no TPU)
+    python tools/evaluate.py --device cpu   # the CPU (slow; no GPU needed)
+
+Without ``--device cpu`` it needs a GPU and exits with an error without
+one. The table is followed by the device the pairs/s column was timed on.
 """
 
 import argparse
@@ -174,7 +177,7 @@ def main():
     ap.add_argument("--batch", type=int, default=None,
                     help="pairs per step (default: the config's own batch)")
     ap.add_argument("--configs", default="office,apartment,cross-season")
-    ap.add_argument("--device", default=None, choices=["cpu"])
+    ap.add_argument("--device", default="gpu", choices=["gpu", "cpu"])
     ap.add_argument(
         "--fuse-rotation-gate", type=float, default=None,
         help="override FCCFParams.fuse_rotation_gate_deg (degrees; "
@@ -207,10 +210,19 @@ def main():
         "tight while keeping the sweep clean)",
     )
     args = ap.parse_args()
-    if args.device == "cpu":
-        import jax
+    import jax
 
+    if args.device == "cpu":
         jax.config.update("jax_platforms", "cpu")
+    elif jax.default_backend() != "gpu":
+        ap.error(
+            "--device gpu requested but JAX found no GPU "
+            f"(jax.devices()={jax.devices()}); pass --device cpu to run "
+            "on the CPU"
+        )
+    from fccf_pcr_tpu.utils.cache import setup_compile_cache
+
+    setup_compile_cache()
 
     esc = None
     if args.escalate_caps == "auto":
@@ -261,6 +273,9 @@ def main():
             f"{r['rte_mean']:.4f} / {r['rte_med']:.4f} / {r['rte_p95']:.4f} | "
             f"{pps} | {r['nonzero_status']} |"
         )
+    d = jax.devices()[0]
+    print(f"\npairs/s timed on {len(jax.devices())} x {d.platform} "
+          f"{d.device_kind}")
 
 
 if __name__ == "__main__":

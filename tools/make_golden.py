@@ -71,9 +71,9 @@ def pipeline_golden(configs=PIPE_CONFIGS, seeds=PIPE_SEEDS, params_set=None):
     import jax
 
     jax.config.update("jax_platforms", "cpu")
-    from fccf_pcr_tpu.utils.cache import host_keyed_cache_dir
+    from fccf_pcr_tpu.utils.cache import setup_compile_cache
 
-    jax.config.update("jax_compilation_cache_dir", host_keyed_cache_dir("tests"))
+    setup_compile_cache()
     jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
 
     import bench

@@ -174,9 +174,9 @@ def main():
     import jax
 
     jax.config.update("jax_platforms", "cpu")
-    from fccf_pcr_tpu.utils.cache import host_keyed_cache_dir
-    jax.config.update("jax_compilation_cache_dir",
-                      host_keyed_cache_dir("measure"))
+    from fccf_pcr_tpu.utils.cache import setup_compile_cache
+
+    setup_compile_cache()
 
     from fccf_pcr_tpu.config import Capacities, FCCFParams
     from fccf_pcr_tpu.io import synthetic

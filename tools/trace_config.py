@@ -3,20 +3,20 @@
 Mirrors bench.py's setup exactly (same preset, same synthetic pairs, same
 pre-downsample boundary — the reference's clock starts after main's
 VoxelGrid pass, FCCF.cpp:1668-1685), warms the compile, then traces N
-steady-state steps and prints the per-op attribution via parse_trace.
+steady-state steps into a ``jax.profiler`` trace directory (an
+``.xplane.pb`` under ``<out>/plugins/profile/``). The reduction of that
+trace to per-stage device time is ROADMAP S2.
 
 Usage:
-    python tools/trace_config.py heritage [--steps 3] [--out /tmp/fccf_trace_r4]
-    python tools/parse_trace.py /tmp/fccf_trace_r4 --group --top 40
+    python tools/trace_config.py heritage --out TRACE_DIR [--steps 3]
 
-One process per capture, same as the A/B discipline (tools/tpu_ab.py).
+One process per capture.
 """
 
 from __future__ import annotations
 
 import argparse
 import os
-import subprocess
 import sys
 import time
 
@@ -28,20 +28,18 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("config", help="bench config name (e.g. heritage)")
     ap.add_argument("--steps", type=int, default=3)
-    ap.add_argument("--out", default="/tmp/fccf_trace_r4")
+    ap.add_argument("--out", required=True, help="trace directory")
     ap.add_argument("--caps-set", action="append", default=[])
     ap.add_argument("--params-set", action="append", default=[])
-    ap.add_argument("--no-parse", action="store_true")
     args = ap.parse_args()
-
-    import numpy as np
 
     import bench
     import jax
     from fccf_pcr_tpu import make_register_fn
-    from fccf_pcr_tpu.io import synthetic
     from fccf_pcr_tpu.models.fccf import get_model
-    from fccf_pcr_tpu.pipeline.register import pre_downsample
+    from fccf_pcr_tpu.utils.cache import setup_compile_cache
+
+    setup_compile_cache()
 
     cfg = bench.CONFIGS[args.config]
     B = cfg.get("batch", 8)
@@ -59,19 +57,9 @@ def main():
                 getattr(params, key), key, val, "--params-set")}
         )
 
-    pairs = bench.pairs_for_config(cfg, range(B))
-    sp = np.stack([synthetic.pad_points(p[0], caps.raw_points)[0] for p in pairs])
-    sm = np.stack([synthetic.pad_points(p[0], caps.raw_points)[1] for p in pairs])
-    tp = np.stack([synthetic.pad_points(p[1], caps.raw_points)[0] for p in pairs])
-    tm = np.stack([synthetic.pad_points(p[1], caps.raw_points)[1] for p in pairs])
-
-    pre = jax.jit(jax.vmap(lambda p, m: pre_downsample(p, m, params, caps)))
-    sp, sm, _ = pre(sp, sm)
-    tp, tm, _ = pre(tp, tm)
-    jax.block_until_ready((sp, sm, tp, tm))
-
+    batches, _ = bench.make_batches(args.config, cfg, params, caps, B)
+    batch = batches[0]
     fn = make_register_fn(params, caps, batched=True)
-    batch = tuple(jax.device_put(a) for a in (sp, sm, tp, tm))
     t0 = time.time()
     jax.block_until_ready(fn(*batch))
     print(f"# compile+first step: {time.time() - t0:.1f}s", file=sys.stderr)
@@ -82,13 +70,6 @@ def main():
     jax.block_until_ready(res)
     jax.profiler.stop_trace()
     print(f"# trace captured -> {args.out}", file=sys.stderr)
-
-    if not args.no_parse:
-        subprocess.run(
-            [sys.executable, os.path.join(ROOT, "tools", "parse_trace.py"),
-             args.out, "--group", "--top", "40"],
-            check=False,
-        )
 
 
 if __name__ == "__main__":

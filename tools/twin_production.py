@@ -2,7 +2,7 @@
 
 The NumPy twin (twin/twin.py) reproduces the reference's sequential
 greedy semantics (FCCF.cpp:536-648 growth, :1040-1231 clustering); the
-TPU pipeline replaces them with order-independent reformulations. The
+JAX pipeline replaces them with order-independent reformulations. The
 standing risk (SURVEY.md §7 hard part #1) is a divergence that only
 appears at densities where face merges actually contend — the in-suite
 parity test runs 800-point miniatures, the bench runs 12k points/plane.
@@ -15,7 +15,7 @@ at production density without paying twin runtime (~30 s/office pair,
 more at building scale) on every run.
 
 Usage:
-    # regenerate the fixture (CPU-only, no TPU needed; ~15-40 min):
+    # regenerate the fixture (CPU-only, no accelerator needed; ~15-40 min):
     python tools/twin_production.py --generate
     # compare the pipeline (current backend) against the cached twin:
     python tools/twin_production.py --check
